@@ -1,6 +1,6 @@
-"""bioem_tpu — TPU-native Bayesian inference of cryo-EM particle images.
+"""bioem_tpu — Bayesian inference of cryo-EM particle images in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework, run on NVIDIA GPUs, with the capabilities of
 bio-phys/BioEM (reference mounted at /root/reference): posterior probability
 of a structural model given particle images, marginalised over orientation,
 CTF/PSF and center-displacement nuisance grids with numerically stable

@@ -1,6 +1,6 @@
 """Command-line interface with the reference's flag surface.
 
-TPU-native equivalent of reference ``main.cpp`` + ``bioem::readOptions``
+JAX equivalent of reference ``main.cpp`` + ``bioem::readOptions``
 (/root/reference/main.cpp:57-134, bioem.cpp:142-436). All reference long
 options are accepted verbatim, so existing BioEM invocations work:
 
@@ -30,7 +30,7 @@ from .io.output import write_angle_probabilities, write_probabilities
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="bioem_tpu",
-        description="TPU-native Bayesian inference of Electron Microscopy images",
+        description="Bayesian inference of Electron Microscopy images (JAX, GPU)",
         add_help=False,
     )
     # Option table mirrors reference bioem.cpp:193-224.
@@ -154,7 +154,7 @@ def write_rotated_models(model, orients, out) -> None:
         rotation_matrices(jnp.asarray(orients.angles), orients.use_quaternions)
     )
     for imap in range(orients.n):
-        rot = model.points @ rotms[imap].T
+        rot = np.matmul(model.points, rotms[imap].T)
         for k in range(model.n_points):
             out.write(
                 f"ROTATED {imap} {k} {rot[k, 0]:g} {rot[k, 1]:g} {rot[k, 2]:g}\n"
@@ -165,9 +165,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = RunConfig.from_env()
 
-    from .config import force_cpu_if_requested
+    from .config import use_compile_cache
 
-    force_cpu_if_requested()
+    use_compile_cache()
 
     # Multi-host bootstrap (reference main.cpp:64-68 runs MPI_Init
     # unconditionally; initialize() is a safe no-op single-host). Must come

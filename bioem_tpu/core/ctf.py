@@ -1,6 +1,6 @@
 """CTF / PSF Fourier kernel bank.
 
-TPU-native equivalent of reference ``CalculateRefCTF``
+JAX equivalent of reference ``CalculateRefCTF``
 (/root/reference/param.cpp:1336-1620). Kernels are precomputed once on the
 host (they are tiny: n_ctf × N × (N/2+1) complex64) and shipped to device as
 a constant bank; per-orientation work on device is then just a broadcasted

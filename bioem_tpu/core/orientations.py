@@ -1,6 +1,6 @@
 """Orientation grids, lists, and rotation matrices.
 
-TPU-native equivalent of the reference orientation-grid generator
+JAX equivalent of the reference orientation-grid generator
 (/root/reference/param.cpp:988-1334) and the rotation-matrix construction in
 ``createProjection`` (/root/reference/bioem.cpp:1627-1673).
 

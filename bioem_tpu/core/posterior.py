@@ -1,6 +1,6 @@
 """Closed-form log-posterior + displacement integration + streaming LSE.
 
-TPU-native re-design of reference ``calc_logpro`` / ``calProb`` /
+JAX re-design of reference ``calc_logpro`` / ``calProb`` /
 ``doRefMapFFT`` (/root/reference/bioem_algorithm.h:18-198) and
 ``calculateCCFFT`` (/root/reference/bioem.cpp:1435-1459).
 
@@ -12,7 +12,7 @@ better hardware mapping:
    (2·maxD/step+1)² entries. Here the inverse DFT is evaluated *only at the
    displacement lattice* as two small complex matrix products
    ``Re(Wx @ (conv ⊙ conj(img) ⊙ h) @ Wyᵀ)`` with DFT weight matrices — the
-   contraction dims are N and N/2+1, so the work lands on the MXU.
+   contraction dims are N and N/2+1, so the work is dense matmuls.
 
 2. **Split-precision log-posterior.** ``logpro`` has magnitude ~N²/2·log(…)
    (≈10⁵–10⁶) but only its *variation* across the nuisance grid matters for
@@ -24,7 +24,7 @@ better hardware mapping:
        K   = A·log F0 + (N²/2−2)·log((N²−2)·ForLogProb) − prior
 
    The huge-but-smooth constant K is computed in float64 (one value per
-   (orientation, ctf, image) — cheap even with TPU f64 emulation), while the
+   (orientation, ctf, image) — a small array next to the D² lattice), while the
    displacement-varying part stays in float32 with *relative* accuracy,
    giving float64-equivalent log(P) at float32 speed. The reference instead
    pays full double precision per displacement (bioem_algorithm.h:42-44).
@@ -47,58 +47,6 @@ F64 = jnp.float64
 I32 = jnp.int32
 
 
-def accurate_log1p(u):
-    """f32 log1p evaluated WITHOUT the TPU intrinsic on the operative range.
-
-    TPU's f32 ``log1p`` intrinsic carries ~3.7e-4 max RELATIVE error
-    (docs/manual.md §9). Amplified by a_coef = (3−N²)/2 ≈ −25k at N=224,
-    that injects |y*|·3.7e-4·25k ≈ 0.1 log-units of backend error into
-    log P through the varying-part max (measured round 5: TPU reads 0.183
-    vs the f32 reference golden where CPU reads 0.077, and the bf16
-    kernel bodies were ruled out by CPU-emulation attribution). An
-    exp-based Newton refinement cannot fix it (exp's own 5e-6 relative
-    error lands as ~5e-6 ABSOLUTE in the correction → 0.125 log-units).
-
-    Instead: for u > −1/3 (|log1p| < 0.41 — every displacement that can
-    matter to the LSE except pathologically flat posteriors, which the
-    f64 argmax refinement in displacement_lse/merge covers) evaluate the
-    atanh series
-
-        log1p(u) = 2s·(1 + s²/3 + s⁴/5 + s⁶/7 + s⁸/9),  s = u/(2+u)
-
-    — pure VPU mul/add/divide, no transcendental: truncation ≤ 4e-9 at
-    |s| ≤ 0.2 and f32 rounding ~ulp, i.e. ~1000× tighter than the
-    intrinsic (and cheaper than its polynomial-with-range-reduction).
-    Below −1/3 fall back to the intrinsic: those evaluations sit ≥0.4·|a|
-    log-units under any near-zero max, and when the max itself lives
-    there the errors are common-mode across the cluster of near-max u's
-    (differences cancel) while the absolute part is repaired in f64 at
-    the argmax. Kill-switch: BIOEM_TPU_ACCURATE_LOG1P=0. CPU/other
-    backends keep the (correctly-rounded) native log1p."""
-    import os
-
-    if jax.default_backend() != "tpu" or os.environ.get(
-        "BIOEM_TPU_ACCURATE_LOG1P", "1"
-    ) == "0":
-        return jnp.log1p(u)
-    return jnp.where(u > jnp.float32(-1 / 3), _log1p_series(u), jnp.log1p(u))
-
-
-def _log1p_series(u):
-    """atanh-series log1p, valid/accurate for u > −1/3 (|s| ≤ 0.2)."""
-    s = u / (2.0 + u)
-    s2 = s * s
-    return (2.0 * s) * (
-        1.0 + s2 * (
-            jnp.float32(1 / 3)
-            + s2 * (
-                jnp.float32(1 / 5)
-                + s2 * (jnp.float32(1 / 7) + s2 * jnp.float32(1 / 9))
-            )
-        )
-    )
-
-
 # ---------------------------------------------------------------------------
 # Host-side precomputed constants
 # ---------------------------------------------------------------------------
@@ -113,22 +61,6 @@ def hermitian_weights(n: int) -> np.ndarray:
     if n % 2 == 0:
         h[-1] = 1.0
     return h
-
-
-def stride_fold(stride: int, n: int, disp: np.ndarray) -> int:
-    """Fold factor for the Pallas kernels' wx weights.
-
-    The fold sums p rows j and j + k·N/s before the stage-1 matmul, which
-    is valid only when wx[d, j] = e^{2πi·j·disp_d/N} has period N/s in j —
-    i.e. s | N AND every displacement is a multiple of s. The second
-    condition is NOT implied by the sweep definition: the reference's
-    −maxD..maxD stride-s sweep (bioem_algorithm.h:156-197) yields
-    non-multiples whenever maxD % s != 0 (e.g. maxD=5, s=3 → {−5,−2,1,4});
-    folding there corrupted cc by ~1e-1 log-units (caught by the round-4
-    random-corner sweep)."""
-    if stride > 1 and n % stride == 0 and (np.asarray(disp) % stride == 0).all():
-        return stride
-    return 1
 
 
 def displacement_dft_weights(n: int, disp: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -266,23 +198,25 @@ def displacement_cc(
 
     Equivalent to reference calculateCCFFT + the /N² normalisation of
     bioem_algorithm.h:163, but evaluated only at the D² lattice points via
-    MXU matmuls. Complex arithmetic is hand-split into real float32
-    operations: the contraction dims (N rows, N/2+1 cols) map onto the MXU,
-    and no complex dtype crosses any jit or host↔device boundary (some PJRT
-    backends cannot transfer complex buffers). Returns (O,C,I,D,D) float32.
+    matmuls. Complex arithmetic is hand-split into real float32 operations
+    whose contraction dims are the N rows and N/2+1 columns. Returns
+    (O,C,I,D,D) float32.
     """
     # product P = conv ⊙ img_fc (complex, split)
-    p_re = conv_re[:, :, None] * img_re[None, None] - conv_im[:, :, None] * img_im[None, None]
-    p_im = conv_re[:, :, None] * img_im[None, None] + conv_im[:, :, None] * img_re[None, None]
-    # T1 = wx @ P  (contract rows n). precision=HIGHEST keeps the MXU in
-    # full-f32 accumulation: the default bf16 path loses ~3 decimal digits
+    with jax.named_scope("cc_product"):
+        p_re = conv_re[:, :, None] * img_re[None, None] - conv_im[:, :, None] * img_im[None, None]
+        p_im = conv_re[:, :, None] * img_im[None, None] + conv_im[:, :, None] * img_re[None, None]
+    # T1 = wx @ P  (contract rows n). precision=HIGHEST keeps full f32: a
+    # GPU's default f32 matmul runs in TF32, which loses ~3 decimal digits
     # of cc, enough to move the displacement argmax.
     hi = jax.lax.Precision.HIGHEST
     ein = partial(jnp.einsum, precision=hi)
-    t1_re = ein("dn,ocinf->ocidf", wx_re, p_re) - ein("dn,ocinf->ocidf", wx_im, p_im)
-    t1_im = ein("dn,ocinf->ocidf", wx_re, p_im) + ein("dn,ocinf->ocidf", wx_im, p_re)
+    with jax.named_scope("cc_stage1"):
+        t1_re = ein("dn,ocinf->ocidf", wx_re, p_re) - ein("dn,ocinf->ocidf", wx_im, p_im)
+        t1_im = ein("dn,ocinf->ocidf", wx_re, p_im) + ein("dn,ocinf->ocidf", wx_im, p_re)
     # cc = Re(T1 @ wyᵀ)  (contract cols f)
-    cc = ein("ef,ocidf->ocide", wy_re, t1_re) - ein("ef,ocidf->ocide", wy_im, t1_im)
+    with jax.named_scope("cc_stage2"):
+        cc = ein("ef,ocidf->ocide", wy_re, t1_re) - ein("ef,ocidf->ocide", wy_im, t1_im)
     return cc.astype(F32)
 
 
@@ -291,11 +225,11 @@ def refine_varying_max(cc_star, sum_c, sum_ref, f0, ntot):
     displacement (f32-u path formula: u = (2·sr·sC·cc − N²·cc²)/F0).
 
     The max's ABSOLUTE error enters log P directly (log Σexp(v) =
-    m + log Σexp(v−m) for any m), so this one f64 log1p per (o, c, i) —
-    the same per-(o,c,i) cost class as the K constant — removes the TPU
-    f32 log1p intrinsic's 3.7e-4 relative error from the posterior's
-    absolute level on BOTH the XLA and the fused-kernel paths. Returns
-    f64 (merge_block upcasts m anyway)."""
+    m + log Σexp(v−m) for any m), and a_coef ≈ −N²/2 amplifies any f32
+    rounding of log1p(u*) by ~25k at N=224. This one f64 log1p per
+    (o, c, i) — the same per-(o,c,i) cost class as the K constant —
+    removes that from the posterior's absolute level. Returns f64
+    (merge_block upcasts m anyway)."""
     cc64 = cc_star.astype(F64)
     u = (
         2.0 * sum_ref.astype(F64)[None, None, :]
@@ -337,10 +271,7 @@ def displacement_lse(
     """
     o, c, i, d1, d2 = cc.shape
     a_coef = jnp.float32((3.0 - ntot) * 0.5)
-    # Flatten the displacement lattice BEFORE the transcendentals: on a
-    # (…, D, D) array the TPU pads the (21, 21) minor tile to (24, 128) —
-    # log1p/exp at 14% lane fill. Flat (…, D²=441) pads to 512 → 86% fill;
-    # measured round 3, this was most of the "XLA displacement-LSE" phase.
+    # One flat displacement axis: a single reduction per (o, c, i).
     cc_flat = cc.reshape(o, c, i, d1 * d2)
     if f32_u:
         sc = sum_c[:, :, None, None]
@@ -349,7 +280,7 @@ def displacement_lse(
         u = (
             2.0 * sr * sc * cc_flat - jnp.float32(ntot) * cc_flat * cc_flat
         ) / f0_32
-        v_flat = a_coef * accurate_log1p(u)  # (O,C,I,D²)
+        v_flat = a_coef * jnp.log1p(u)  # (O,C,I,D²)
         m = jnp.max(v_flat, axis=-1)
         d_star = jnp.argmax(v_flat, axis=-1).astype(I32)
         sumexp = jnp.sum(jnp.exp(v_flat - m[..., None]), axis=-1)
@@ -357,11 +288,10 @@ def displacement_lse(
         # Absolute-accuracy repair: recompute the max term at the argmax in
         # f64 (one log1p per (o,c,i) — same cost class as the K constant).
         # log Σexp(v) = m + log Σexp(v−m) holds for ANY m, so substituting
-        # the f64 value corrects the common-mode/absolute intrinsic error
-        # exactly at the term that sets log P's absolute level, while the
-        # f32 relative differences (already intrinsic-free via the series
-        # above for u > −1/3) are untouched. sumexp above was computed
-        # against the raw f32 max — the identity absorbs the difference.
+        # the f64 value corrects the absolute f32 rounding exactly at the
+        # term that sets log P's absolute level, while the f32 relative
+        # differences are untouched. sumexp above was computed against the
+        # raw f32 max — the identity absorbs the difference.
         m = refine_varying_max(cc_star, sum_c, sum_ref, f0, ntot)
         return m, sumexp, d_star, cc_star
     else:
@@ -525,7 +455,7 @@ def merge_block(
 def merge_across_orient(state: PosteriorState, axis_name: str) -> PosteriorState:
     """Collective log-sum-exp + argmax merge over the orientation mesh axis.
 
-    TPU-native replacement for the reference's MPI three-phase reduction
+    JAX replacement for the reference's MPI three-phase reduction
     (/root/reference/bioem.cpp:909-1044): Allreduce-MAX of per-image
     constants, local rescale, SUM-reduce of shifted totals, and point-to-
     point shipping of the argmax tuple — here a pmax + psum pair plus a

@@ -1,6 +1,6 @@
 """Model projection: rotate a point/sphere cloud and rasterise onto a 2D grid.
 
-TPU-native re-design of reference ``createProjection``
+JAX re-design of reference ``createProjection``
 (/root/reference/bioem.cpp:1604-1853). The reference loops over model points
 with data-dependent sphere footprints; here each point carries a *static*
 stencil of (2·irad_max+1)² candidate pixels whose weights are masked by the
@@ -12,8 +12,7 @@ Two rasterisation backends:
 * ``onehot`` (default): the scatter is reformulated as two matrix products —
   ``T[p,v,i] = Σ_s w[p,s,v]·X[p,s,i]`` and ``proj[i,j] = Σ_{p,v}
   T[p,v,i]·Y[p,v,j]`` with one-hot placement matrices X/Y built by integer
-  comparison. Placement runs on the MXU instead of TPU's serialised
-  scatter unit (~30× faster at production sizes).
+  comparison, so placement is a dense matmul with no scatter.
 * ``scatter``: direct XLA scatter-add, kept as a cross-check and for
   backends where it wins.
 
@@ -82,11 +81,10 @@ def _stencil_weights(spec: ProjectionSpec, rotmat, points, radii, densities):
     s = spec.stencil_half
 
     # (P, 3); r' = R @ r (bioem.cpp:1683-1693). HIGHEST is load-bearing:
-    # TPU default-precision matmul runs bf16 — a ~4e-3-relative coordinate
-    # error is ~quarter-PIXEL at production extents, flipping pixel snaps
-    # wholesale vs the f32 reference (measured round 5: conv spectra off
-    # by 5 % end-to-end, 0.11 log-units at N=224 — the entire TPU-vs-CPU
-    # accuracy gap). A (P,3)·(3,3) matmul at HIGHEST costs nothing.
+    # a reduced-precision matmul (bf16, or TF32 — a GPU's default for f32)
+    # gives a coordinate error that is a sizeable fraction of a pixel at
+    # production extents and flips pixel snaps wholesale vs the f32
+    # reference. A (P,3)·(3,3) matmul at HIGHEST costs nothing.
     rot = jnp.matmul(points, rotmat.T, precision=jax.lax.Precision.HIGHEST)
     x, y = rot[:, 0], rot[:, 1]
 
@@ -147,7 +145,7 @@ def _raster_scatter(spec: ProjectionSpec, i0, j0, w, du, dv):
 
 
 def _raster_onehot(spec: ProjectionSpec, i0, j0, w, du, dv):
-    """Scatter as matmul: placement one-hots contract on the MXU.
+    """Scatter as matmul: placement one-hots contract in a dense matmul.
 
     Invalid/out-of-range rows simply match no output pixel, so no clipping
     is needed (weights are already zeroed for invalid points).
@@ -207,7 +205,7 @@ def project_batch(
 #                      Σ_{p∈r} dens_p · e^{−2πi(k1·i0_p + k2·j0_p)/N}
 #
 # with Ŝ_r the DFT of radius-group r's unit-density stencil (precomputed on
-# the host) and the inner sum a complex outer product — i.e. one MXU matmul
+# the host) and the inner sum a complex outer product — i.e. one matmul
 # Exᵀ(N, P_r) @ Ey(P_r, F) per radius group. Exact w.r.t. the raster path
 # (same rounding, same bounds-skip semantics — valid windows never wrap), it
 # replaces the scatter/one-hot raster AND the FFT. Applicable when the model
@@ -302,14 +300,14 @@ def make_fourier_projection_spec(
 def fourier_prologue(
     fspec: FourierProjectionSpec, rotmat, points, radii, densities
 ):
-    """Rotation + pixel snap + validity masking shared by the XLA and
-    Pallas Fourier-projection backends. Returns (θx, θy, dens_eff), each
+    """Rotation + pixel snap + validity masking of the Fourier projection
+    (grid engine and refine.py). Returns (θx, θy, dens_eff), each
     (P,): phase increments −2π·i0/N, −2π·j0/N and the bounds-masked
     densities (reference bioem.cpp:1715-1803 semantics)."""
     n = fspec.n_pixels
     pix = jnp.float32(fspec.pixel_size)
-    # HIGHEST: see _stencil_weights — bf16 default-precision rotations
-    # flip pixel snaps on TPU.
+    # HIGHEST: see _stencil_weights — reduced-precision rotations flip
+    # pixel snaps.
     rot = jnp.matmul(points, rotmat.T, precision=jax.lax.Precision.HIGHEST)
     x, y = rot[:, 0], rot[:, 1]
     half = jnp.float32(n) / 2.0
@@ -368,8 +366,7 @@ def fourier_epilogue(
     ``signed_rows``: row frequencies as signed integers (−N/2, N/2]. At the
     snapped path's INTEGER pixel positions both conventions are identical
     (e^{iθk} is k-periodic mod N there), so the grid engine keeps the raw
-    0..N−1 layout (bit-stable vs the Pallas projection kernel's power
-    tables). The smooth path MUST use signed rows: with raw indices a
+    0..N−1 layout. The smooth path MUST use signed rows: with raw indices a
     fractional point position breaks the spectrum's Hermitian row symmetry
     — the "projection" acquires Nyquist-scale ringing, the surrogate
     posterior ripples at subpixel scale, and an image synthesised from it
@@ -426,39 +423,6 @@ def project_fourier_batch(
             fspec, rm, points, radii, densities, norm_den, st_re, st_im, st_sums
         )
     )(rotmats)
-
-
-def project_fourier_batch_pallas(
-    fspec, rotmats, points, radii, densities, norm_den, st_re, st_im, st_sums,
-    interpret=None,
-):
-    """Same contract as project_fourier_batch via the Pallas kernel
-    (ops/project_pallas.py): in-kernel phase tables (2 transcendentals per
-    point instead of 2·(N+F)), 3-pass bf16 group contraction, stencil bank
-    streamed once per block, per-group spectra never leaving VMEM."""
-    from ..ops.project_pallas import fourier_project_block
-
-    g, pp = fspec.n_groups, fspec.group_pad
-    n = fspec.n_pixels
-    thx, thy, de = jax.vmap(
-        lambda rm: fourier_prologue(fspec, rm, points, radii, densities)
-    )(rotmats)  # each (O, G·Pp)
-    o_n = rotmats.shape[0]
-
-    def regroup(x):  # (O, G·Pp) → (G, O, Pp)
-        return jnp.transpose(x.reshape(o_n, g, pp), (1, 0, 2))
-
-    pr, pi = fourier_project_block(
-        regroup(thx), regroup(thy), regroup(de), st_re, st_im,
-        n=n, interpret=interpret,
-    )
-    group_dens = jnp.sum(de.reshape(o_n, g, pp), axis=2)  # (O, G)
-    tempden = jnp.matmul(
-        group_dens, st_sums.astype(jnp.float32),
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (O,)
-    scale = (norm_den / tempden)[:, None, None]
-    return pr * scale, pi * scale
 
 
 # ---------------------------------------------------------------------------

@@ -7,19 +7,17 @@ both its CPU and CUDA paths (/root/reference/bioem_algorithm.h:88-128,
 diffed line-by-line at any problem size — the debugging story the oracle
 tests cannot provide at production shapes.
 
-TPU-native analogue: :func:`dump_logpro` recomputes the FULL per-displacement
-log posterior of one selected image through either the XLA einsum path or the
-Pallas kernel path (the same ``_cc_tile_stacked`` body the fused production
-kernel runs), using the engine's own split-precision decomposition, and
-returns/writes it as reference-style text lines. ``tools/diff_prob_dump.py``
-diffs two dumps.
+JAX analogue: :func:`dump_logpro` recomputes the FULL per-displacement log
+posterior of one selected image through the engine's own projection,
+convolution and displacement-matmul pieces and its split-precision
+decomposition, and returns/writes it as reference-style text lines.
+``tools/diff_prob_dump.py`` diffs two dumps (e.g. of two engines built with
+different block sizes, or of two devices).
 
 Env gating (read by the CLI after the main run):
 
 * ``BIOEM_TPU_DEBUG_PROB`` — image index to dump.
 * ``BIOEM_TPU_DEBUG_PROB_FILE`` — output path (default ``debug_prob.txt``).
-* ``BIOEM_TPU_DEBUG_PROB_KERNEL`` — ``xla`` | ``pallas`` (default: the
-  engine's active path).
 """
 
 from __future__ import annotations
@@ -43,7 +41,7 @@ F32 = jnp.float32
 F64 = jnp.float64
 
 
-def _block_logpro(engine, banks, angles, img_re, img_im, sref, ssref, kernel):
+def _block_logpro(engine, banks, angles, img_re, img_im, sref, ssref):
     """Full (O, C, D, D) f64 logpro of one image for one orientation block.
 
     Mirrors engine._block_step's math but keeps every displacement value
@@ -53,48 +51,14 @@ def _block_logpro(engine, banks, angles, img_re, img_im, sref, ssref, kernel):
     n = p.n_pixels
     ntot = p.n_total_pixels
     pr, pi = engine._project_block(banks, angles)
-    o, c = pr.shape[0], engine.n_ctf
-    d = banks.wy_re.shape[0]
-
     prior = ctf_prior_term(banks.amp, banks.pha, banks.env, p)  # (C,) f64
-
-    if kernel == "pallas":
-        from .ops.compare_pallas import fused_displacement_cc
-
-        # Separable sums exactly as the Pallas engine path computes them
-        # (engine.py: |conv|² = |proj|²·|ctf|²).
-        hi = jax.lax.Precision.HIGHEST
-        mag_p = (pr * pr + pi * pi) * banks.h[None, None, :]
-        mag_c = banks.ctf_re**2 + banks.ctf_im**2
-        ssq_c = jnp.dot(
-            mag_p.reshape(o, -1), mag_c.reshape(c, -1).T,
-            preferred_element_type=F32, precision=hi,
-        ) / jnp.float32(ntot)
-        sum_c = (
-            pr[:, 0, 0, None] * banks.ctf_re[None, :, 0, 0]
-            + pi[:, 0, 0, None] * banks.ctf_im[None, :, 0, 0]
-        )
-        conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
-        conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
-        from .core.posterior import stride_fold
-
-        n_fold = stride_fold(p.grid_space_center, n, np.asarray(engine.disp))
-        cc = fused_displacement_cc(
-            conv_re.reshape(o * c, n, p.n_fft_1d),
-            conv_im.reshape(o * c, n, p.n_fft_1d),
-            img_re, img_im,
-            banks.wx_re[:, : n // n_fold], banks.wx_im[:, : n // n_fold],
-            banks.wy_re, banks.wy_im,
-            img_tile=1, n_fold=n_fold,
-        ).reshape(o, c, 1, d, d)
-    else:
-        conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
-        conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
-        sum_c, ssq_c = convolution_sums(conv_re, conv_im, banks.h, n)
-        cc = displacement_cc(
-            conv_re, conv_im, img_re, img_im,
-            banks.wx_re, banks.wx_im, banks.wy_re, banks.wy_im,
-        )
+    conv_re = pr[:, None] * banks.ctf_re[None] + pi[:, None] * banks.ctf_im[None]
+    conv_im = pi[:, None] * banks.ctf_re[None] - pr[:, None] * banks.ctf_im[None]
+    sum_c, ssq_c = convolution_sums(conv_re, conv_im, banks.h, n)
+    cc = displacement_cc(
+        conv_re, conv_im, img_re, img_im,
+        banks.wx_re, banks.wx_im, banks.wy_re, banks.wy_im,
+    )
 
     prior_oc = jnp.broadcast_to(prior[None, :], sum_c.shape)
     f0, k = logpro_constants(
@@ -109,15 +73,11 @@ def _block_logpro(engine, banks, angles, img_re, img_im, sref, ssref, kernel):
         u = (
             2.0 * sr * sc * cc_i - jnp.float32(ntot) * cc_i * cc_i
         ) / f0.astype(F32)[:, :, 0, None, None]
-        # accurate_log1p mirrors the engine's LSE (review r5: the raw
-        # intrinsic here would make TPU dumps diverge from the engine by
-        # the very error the series removes). The engine's f64 repair of
-        # the ARGMAX term (refine_varying_max) is a property of the merged
-        # max, not of per-evaluation values, so it has no mirror here —
-        # dump-vs-output totals agree to the series floor (~1e-7·|v|).
-        from .core.posterior import accurate_log1p
-
-        v = jnp.float32(a_coef) * accurate_log1p(u)
+        # The engine's f64 repair of the ARGMAX term (refine_varying_max)
+        # is a property of the merged max, not of per-evaluation values,
+        # so it has no mirror here — dump-vs-output totals agree to the
+        # f32 rounding floor (~1e-7·|v|).
+        v = jnp.float32(a_coef) * jnp.log1p(u)
         logpro = k[:, :, 0, None, None] + v.astype(F64)
     else:
         cc64 = cc_i.astype(F64)
@@ -137,20 +97,9 @@ def _block_logpro(engine, banks, angles, img_re, img_im, sref, ssref, kernel):
     return logpro, cc_i.astype(F64)
 
 
-def dump_logpro(
-    engine,
-    image_index: int,
-    kernel: Optional[str] = None,
-    banks=None,
-):
+def dump_logpro(engine, image_index: int, banks=None):
     """(logpro, cc) arrays of shape (n_orient, n_ctf, D, D) float64 for one
-    image — every posterior evaluation the engine integrates over.
-
-    ``kernel``: 'xla' | 'pallas' | None (engine's active path)."""
-    if kernel is None:
-        kernel = "pallas" if engine.use_pallas else "xla"
-    if kernel not in ("xla", "pallas"):
-        raise ValueError(f"kernel={kernel!r}")
+    image — every posterior evaluation the engine integrates over."""
     if banks is None:
         banks = engine.banks
     if not 0 <= image_index < engine.n_img:
@@ -163,7 +112,7 @@ def dump_logpro(
     sref = banks.sum_ref[i : i + 1]
     ssref = banks.ssq_ref[i : i + 1]
 
-    step = jax.jit(partial(_block_logpro, engine, kernel=kernel))
+    step = jax.jit(partial(_block_logpro, engine))
     out_lp, out_cc = [], []
     nblk = engine.ang_blocks.shape[0]
     for b in range(nblk):
@@ -241,9 +190,8 @@ def maybe_dump_from_env(engine) -> Optional[str]:
     if idx is None:
         return None
     path = os.environ.get("BIOEM_TPU_DEBUG_PROB_FILE", "debug_prob.txt")
-    kernel = os.environ.get("BIOEM_TPU_DEBUG_PROB_KERNEL") or None
     i = int(idx)
-    lp, cc = dump_logpro(engine, i, kernel=kernel)
+    lp, cc = dump_logpro(engine, i)
     write_dump(path, i, lp, cc, np.asarray(engine.disp))
     print(f"DEBUG_PROB dump ({lp.size} evaluations) written to: {path}")
     return path

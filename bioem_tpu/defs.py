@@ -20,9 +20,9 @@ FLOAT = np.float32
 COMPLEX = np.complex64
 
 # Probability-accumulation dtype ("myprob_t" with BIOEM_PROB_DOUBLE,
-# reference defs.h:60). On TPU, float64 is software-emulated; the framework
-# confines it to tiny per-(orientation, ctf) scalars and per-image
-# accumulator state, so the cost is negligible.
+# reference defs.h:60). The framework confines float64 to small
+# per-(orientation, ctf, image) constants and per-image accumulator state;
+# the per-displacement work stays float32.
 PROB = np.float64
 
 # Default output filenames (reference defs.h:42-46).

@@ -1,6 +1,6 @@
 """Particle-image readers: text, MRC stack, multiple MRC, binary dump.
 
-TPU-native equivalent of reference ``map.cpp`` (/root/reference/map.cpp).
+JAX equivalent of the reference BioEM's ``map.cpp``.
 MRC images are normalised per image to zero mean / unit population σ unless
 NO_MAP_NORM (map.cpp:830-845, 918-931); text images are taken as stored.
 """

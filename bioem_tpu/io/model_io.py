@@ -1,6 +1,6 @@
 """Structural-model readers: text, PDB (Cα), MRC voxel model, binary dump.
 
-TPU-native equivalent of reference ``model.cpp`` (/root/reference/model.cpp).
+JAX equivalent of the reference BioEM's ``model.cpp``.
 Parsing is vectorised NumPy over an mmap'd buffer (the reference's
 OpenMP-parallel parsing, model.cpp:114-243, is replaced by NumPy bulk
 parsing; an optional C++ fast path lives in bioem_tpu.runtime).

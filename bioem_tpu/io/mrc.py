@@ -1,6 +1,6 @@
 """MRC file parsing with endianness auto-detection.
 
-TPU-native equivalent of reference ``include/mrc.h`` (test_mrc /
+JAX equivalent of reference ``include/mrc.h`` (test_mrc /
 check_one_MRC, /root/reference/include/mrc.h:72-237): the endianness is
 guessed by counting header-field range violations under both byte orders and
 picking the order with fewer. Only mode-2 (32-bit float) data is accepted,

@@ -1,6 +1,6 @@
 """Multi-device execution over a 2-D (images × orientations) mesh.
 
-TPU-native replacement for the reference's MPI layer
+JAX replacement for the reference's MPI layer
 (/root/reference/main.cpp:64-68, bioem.cpp:453-503, 748-753, 909-1044):
 
 * the reference's rank-sliced orientation loop (P1) → orientation blocks
@@ -9,7 +9,8 @@ TPU-native replacement for the reference's MPI layer
   ``img`` mesh axis (each shard holds its image FFT bank and its slice of
   the streaming posterior state);
 * the end-of-run MPI max/rescale/sum reduction + argmax shipping → one
-  collective log-sum-exp (`merge_across_orient`) riding the ICI.
+  collective log-sum-exp (`merge_across_orient`), which XLA lowers to
+  NCCL all-reduces over NVLink between the cards of a host.
 
 The main loop is communication-free, exactly like the reference: shards
 work independently between setup and the single final collective.

@@ -1,6 +1,6 @@
 """Physics-parameter parsing and derived integration grids.
 
-TPU-native re-implementation of the reference's keyword parameter file
+JAX re-implementation of the reference's keyword parameter file
 (reference: /root/reference/param.cpp:64-627) and the derived quantities
 computed in ``CalculateRefCTF`` (param.cpp:1336-1620): CTF/PSF grid values,
 the displacement grid, and the normalised integration volume element.

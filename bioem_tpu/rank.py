@@ -138,9 +138,9 @@ def main(argv=None) -> int:
     ap.add_argument("--OutputFile", default="Model_Ranking")
     args = ap.parse_args(argv)
 
-    from .config import force_cpu_if_requested
+    from .config import use_compile_cache
 
-    force_cpu_if_requested()  # same BIOEM_TPU_FORCE_CPU contract as the CLI
+    use_compile_cache()
     cfg = RunConfig.from_env()
     p = read_parameters(args.Inputfile, not_uniform_angles=args.ReadOrientation is not None)
     images = read_ref_maps(

@@ -45,7 +45,7 @@ sidelobe (first-order methods measurably do, even when a monotone uphill
 path to the true peak exists — the flow crosses a curved separatrix).
 The standard cure is multi-start: Newton runs from the seed plus
 ``n_starts−1`` jittered starts at grid-cell scale, all images × starts
-batched in one vmap (TPU-friendly), and the best final log-posterior
+batched in one vmap, and the best final log-posterior
 wins. Starts are accept/reject monotone, so the winner is ≥ the seed
 objective by construction.
 
@@ -94,8 +94,9 @@ def exp_so3(omega: jnp.ndarray) -> jnp.ndarray:
     wx, wy, wz = omega[0], omega[1], omega[2]
     k = jnp.array([[0.0, -wz, wy], [wz, 0.0, -wx], [-wy, wx, 0.0]], omega.dtype)
     eye = jnp.eye(3, dtype=omega.dtype)
-    # HIGHEST: TPU default matmul is bf16 — 4e-3 error on a rotation
-    # matrix would swamp the sub-pixel polish this module exists for.
+    # HIGHEST: a GPU's default f32 matmul is TF32 — its ~1e-3 relative
+    # error on a rotation matrix would swamp the sub-pixel polish this
+    # module exists for.
     kk = jnp.matmul(k, k, precision=jax.lax.Precision.HIGHEST)
     return eye + a * k + b * kk
 
@@ -114,7 +115,8 @@ def smooth_projection_phases(
     (reference bioem.cpp:1715-1741). The SHIFT_X/Y offsets apply to
     large-radius points exactly as in the snapped path."""
     pix = jnp.asarray(pixel_size, F32)
-    # HIGHEST: see exp_so3 — bf16 default matmuls break sub-pixel accuracy.
+    # HIGHEST: see exp_so3 — reduced-precision matmuls break sub-pixel
+    # accuracy.
     rot = jnp.matmul(
         points, rotmat.T.astype(points.dtype),
         precision=jax.lax.Precision.HIGHEST,
@@ -324,19 +326,11 @@ def _newton_ascent(objective, vec0, consts, iters):
     g_fn = jax.grad(f)
     h_fn = jax.hessian(f)
 
-    def solve_small(a, b):
-        # TPU LuDecomposition supports only f32/c64 — solve in f32 with one
-        # f64 iterative-refinement step (≈ f64-accurate for this damped
-        # small system; a still-bad step is simply rejected by the λ loop).
-        s0 = jnp.linalg.solve(a.astype(F32), b.astype(F32)).astype(F64)
-        r = b - jnp.matmul(a, s0, precision=jax.lax.Precision.HIGHEST)
-        return s0 + jnp.linalg.solve(a.astype(F32), r.astype(F32)).astype(F64)
-
     def step(carry, _):
         vec, lam, fv = carry
         g = g_fn(vec)
         h = h_fn(vec)
-        s = solve_small(lam * jnp.eye(dim, dtype=F64) - h, g)
+        s = jnp.linalg.solve(lam * jnp.eye(dim, dtype=F64) - h, g)
         # Singular/overflowed solve → fall back to a small gradient step.
         s = jnp.where(
             jnp.all(jnp.isfinite(s)), s,

@@ -1,6 +1,6 @@
 """Forward simulator: synthesise the maximum-a-posteriori image.
 
-TPU-native equivalent of the reference's --PrintBestCalMap mode
+JAX equivalent of the reference's --PrintBestCalMap mode
 (/root/reference/bioem.cpp:624-657, 1925-2085): project the model at the
 given best orientation, convolve with the single best CTF/PSF kernel,
 inverse-FFT to real space, apply norm/offset (+ optional Gaussian noise) and
@@ -60,7 +60,7 @@ def _project_numpy(p: BioEMParams, model: Model, orient: np.ndarray, use_quat: b
                 [sb * sa, -sb * ca, cb],
             ]
         )
-    rot = model.points.astype(np.float64) @ rm.T
+    rot = np.matmul(model.points.astype(np.float64), rm.T)
     proj = np.zeros((n, n))
     tempden = 0.0
     pix = p.pixel_size

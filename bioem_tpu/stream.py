@@ -2,7 +2,7 @@
 
 The reference never holds the full working set on the GPU — images are
 tiled through in chunks of ``nTotParallelMaps`` = 1024
-(/root/reference/map.cpp:549, include/defs.h:182). The TPU analogue here is
+(BioEM map.cpp:549, include/defs.h:182). The analogue here is
 an outer **host loop over image chunks**: the engine is built once (CTF
 bank, orientation blocks, compiled step), and each chunk swaps only the
 image banks in (:meth:`BioEMEngine.swap_images` — same shapes, so the
@@ -22,13 +22,13 @@ Chunking trades re-projection for memory: every chunk re-runs the full
 orientation scan, so projection + CTF work is repeated ``n_chunks`` times.
 That is the right trade — the posterior state is per-image (cross-chunk
 merging is plain concatenation, unlike the orientation axis whose state
-must be LSE-merged), and projection is a small fraction of the block step
-(≈4% at production shapes: one (O·Pp, N)×(N, F) matmul pair per radius
-group vs the O(O·C·I) comparison kernel — tools/profile_block.py).
+must be LSE-merged), and projection should be a small fraction of the
+block step: one (O·Pp, N)×(N, F) matmul pair per radius group vs the
+O(O·C·I) comparison (its measured share: tools/trace_step.py).
 
 Memory per chunk: chunk_images × N × (N/2+1) × 2 float32 (conj-FFT bank)
 plus the per-image state — ~11 MB per 1024 224² images, so a 50k-image set
-streams through a single chip that could never hold its 20 GB bank.
+streams through a single card without holding its 20 GB bank.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """Per-phase wall-clock statistics (mean ± σ) and profiler hooks.
 
-TPU-native equivalent of the reference's ``HighResTimer``/``TimeStat``
+JAX equivalent of the reference's ``HighResTimer``/``TimeStat``
 (/root/reference/timer.cpp:23-165, include/timer.h:27-94) and its NVTX
 ranges (/root/reference/bioem.cpp:53-91): the engine's setup and per-block
 step times are collected here and summarised like the reference's
 end-of-run phase table; ``profile_trace`` wraps a region in a
 ``jax.profiler`` trace (the NVTX analogue — view with TensorBoard/XProf).
 
-On TPU the reference's separate projection/convolution/comparison phases are
-fused into one compiled block step (that fusion *is* the optimisation), so
-the phase granularity is: SETUP (host precompute + compile), BLOCK (one
+The reference's separate projection/convolution/comparison phases are fused
+into one compiled block step (that fusion *is* the optimisation), so the
+phase granularity is: SETUP (host precompute + compile), BLOCK (one
 orientation-block step), REDUCE (final collective + host readback).
 """
 

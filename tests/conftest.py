@@ -2,15 +2,18 @@
 
 Mirrors the reference's "multi-node testing without a cluster" strategy
 (mpirun on one box, /root/reference/doc/index.rst:1367-1389): we emulate an
-8-chip TPU topology on host CPU via XLA's host-platform device count.
+8-device topology on the host CPU via XLA's host-platform device count.
+
+Markers: ``slow`` (left out of the tier-1 run) and ``gpu`` (needs a card).
+The suite itself pins the CPU; what runs on the card is checked by
+``python chip_smoke.py``. A test that needs a card must decide whether one
+is present inside a fixture, never while modules are imported.
 """
 
 import os
 
-# Force CPU: the test suite must not depend on TPU availability, and the
-# 8-device mesh emulation below only works on the host platform. NOTE: the
-# env var JAX_PLATFORMS is overridden by TPU plugins in some environments;
-# jax.config.update is authoritative.
+# Force CPU: the 8-device mesh emulation below only works on the host
+# platform, and the suite must not depend on an accelerator.
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -21,6 +24,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+# The CLI places a persistent compile cache in the checkout; tests write none.
+jax.config.update("jax_enable_compilation_cache", False)
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -72,6 +77,13 @@ def tiny_images(rng, n_img, n_pixels) -> ImageStack:
     sig = np.sqrt((flat**2).mean(axis=1) - mean**2)
     maps = (maps / sig[:, None, None] - (mean / sig)[:, None, None]).astype(np.float32)
     return ImageStack(maps)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "slow: long-running; not in tier-1")
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU card (run on the card, not in tier-1)"
+    )
 
 
 @pytest.fixture

@@ -1,6 +1,6 @@
 """Plain-NumPy oracle implementing the reference BioEM math 1:1.
 
-This is the golden generator for the TPU framework's tests: a direct,
+This is the golden generator for the framework's tests: a direct,
 loop-based transliteration of the §0 formulas from SURVEY.md, citing the
 reference (/root/reference) file:line for every step. It is deliberately
 slow and simple — run it only on tiny configurations.

@@ -3,7 +3,8 @@
 Reference: compiled-in DEBUG_PROB printf of every (iRefMap, iOrient, iConv,
 disx, disy, cc, logpro) evaluation (/root/reference/include/defs.h:52,
 bioem_algorithm.h:88-128, bioem_cuda.cu:308-313) used to diff the CPU and
-GPU paths. Here: XLA vs Pallas paths, at N=64 (beyond the oracle's reach).
+GPU paths. Here: two engine layouts (orientation × image blocking) at N=64,
+beyond the oracle's reach.
 """
 
 import numpy as np
@@ -27,7 +28,8 @@ def make_engine(rng, n=16, **cfg_kw):
     orients = build_orientations(p)
     model = tiny_model(rng)
     images = tiny_images(rng, 2, n)
-    cfg = RunConfig(orient_block=2, use_pallas=False, **cfg_kw)
+    cfg_kw.setdefault("orient_block", 2)
+    cfg = RunConfig(**cfg_kw)
     return BioEMEngine(p, orients, model, images, cfg)
 
 
@@ -42,7 +44,7 @@ def test_dump_matches_engine_posterior(rng):
     reduction order)."""
     eng = make_engine(rng)
     state = eng.run()
-    lp, cc = dump_logpro(eng, 0, kernel="xla")
+    lp, cc = dump_logpro(eng, 0)
     assert lp.shape == (eng.n_orient, eng.n_ctf, len(eng.disp), len(eng.disp))
     assert np.isfinite(lp).all()
     want = float(np.log(np.asarray(state.total)[0]) + np.asarray(state.const)[0])
@@ -58,32 +60,40 @@ def test_dump_matches_engine_posterior(rng):
     assert int(np.asarray(state.best_cent_y)[0]) == -int(eng.disp[iy])
 
 
-def test_xla_vs_pallas_dump_n64(rng, monkeypatch, tmp_path):
-    """The production debugging story: diff the two compute paths at N=64
-    through the text format and the diff tool."""
-    # Force the production 3-pass bf16 stacked body in interpret mode so the
-    # dump exercises the same matmul pipeline the TPU kernel runs.
-    monkeypatch.setenv("BIOEM_TPU_MXU_PRECISION", "stacked")
-    eng = make_engine(rng, n=64)
-    lp_x, cc_x = dump_logpro(eng, 1, kernel="xla")
-    lp_p, cc_p = dump_logpro(eng, 1, kernel="pallas")
+def test_xla_vs_pallas_dump_n64(rng, tmp_path):
+    """The production debugging story: diff two dumps at N=64 through the
+    text format and the diff tool. The two engines differ in orientation
+    and image blocking (3 vs 4 orientations per step, images one at a time
+    vs together), so their matmuls run at other shapes; every evaluation
+    must agree to f32 rounding."""
+    state = rng.bit_generator.state
+    eng_a = make_engine(rng, n=64, orient_block=3, image_block=1)
+    rng.bit_generator.state = state
+    eng_b = make_engine(rng, n=64, orient_block=4, image_block=2)
+    assert (eng_a.o_block, eng_a.i_block) != (eng_b.o_block, eng_b.i_block)
+    lp_x, cc_x = dump_logpro(eng_a, 1)
+    lp_p, cc_p = dump_logpro(eng_b, 1)
 
     fa, fb = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
-    write_dump(fa, 1, lp_x, cc_x, eng.disp)
-    write_dump(fb, 1, lp_p, cc_p, eng.disp)
+    write_dump(fa, 1, lp_x, cc_x, eng_a.disp)
+    write_dump(fb, 1, lp_p, cc_p, eng_b.disp)
     a, b = read_dump(fa), read_dump(fb)
     assert len(a) == lp_x.size
     dlog, dcc, worst, n_common, only_a, only_b = diff_dumps(a, b)
     assert n_common == lp_x.size and not only_a and not only_b
-    # cc from the 3-pass bf16 body ≈ 1e-5 relative of cc scale; logpro
-    # differences amplified by a_coef·d(log1p) stay well under a log-unit.
-    assert dcc < 5e-4 * max(1.0, np.abs(cc_x).max())
+    # f32 cc rounding ≈ 1e-6 relative of the cc scale; logpro differences
+    # amplified by a_coef·d(log1p) stay far under a log-unit.
+    assert dcc < 1e-5 * max(1.0, np.abs(cc_x).max())
     assert dlog < 0.05
 
     from tools.diff_prob_dump import main as diff_main
 
     assert diff_main([fa, fb, "--atol", "0.05"]) == 0
-    assert diff_main([fa, fb, "--atol", str(dlog / 10 + 1e-300)]) == 1
+    # A perturbed dump must fail the diff.
+    lp_bad = lp_p.copy()
+    lp_bad[0, 0, 0, 0] += 1.0
+    write_dump(fb, 1, lp_bad, cc_p, eng_b.disp)
+    assert diff_main([fa, fb, "--atol", "0.05"]) == 1
 
 
 def test_env_gated_cli_dump(rng, monkeypatch, tmp_path):

@@ -158,8 +158,7 @@ def test_dc_dominated_unnormalized_images_match_oracle(rng):
 def test_random_config_corners(seed):
     """Property sweep: randomly sampled parameter-space corners must match
     the oracle. Deliberately includes shapes no other test pins: odd N,
-    displacement strides that do not divide N (disables the kernel's
-    stride-fold), NON-SYMMETRIC displacement sets (max_disp % stride != 0,
+    displacement strides that do not divide N, NON-SYMMETRIC displacement sets (max_disp % stride != 0,
     e.g. {-5,-2,1,4} — reference doRefMapFFT sweeps -maxD..maxD in stride
     steps with no symmetry guarantee, bioem_algorithm.h:156-197), SHIFT_X/Y,
     and both CTF/PSF modes."""
@@ -204,43 +203,37 @@ def test_random_config_corners(seed):
             res.angle_log, oracle.angle_log, atol=2e-4
         )
 
-    # Same corner through the Pallas kernel (interpret mode): the fold /
-    # padding / tie-breaking logic must hold across the whole sampled
-    # space, not just the shapes the dedicated pallas tests pin.
+
+@pytest.mark.parametrize("orient_block,image_block,stride,max_d", [
+    # Blocks that leave padding lanes on both axes (n_orient and n_img are
+    # not multiples of the block sizes; tiny_params' Euler grid gives 8
+    # orientations, the stack has 5 images).
+    (3, 2, 1, 2), (5, 3, 1, 2), (7, 4, 1, 2), (6, 4, 1, 2),
+    # Displacement lattices at strides 1-3; maxD % stride != 0 gives
+    # sweeps that are not symmetric about 0 (e.g. {-5, -2, 1, 4}).
+    (3, 2, 1, 3), (3, 2, 2, 3), (3, 2, 2, 5), (3, 2, 3, 4), (3, 2, 3, 5),
+])
+def test_blocking_and_lattice_match_oracle(orient_block, image_block, stride, max_d):
+    """Engine vs the NumPy oracle over (orient_block, image_block) pairs
+    with padded lanes and over stride-1/2/3 displacement lattices."""
+    p = tiny_params(max_displace_center=max_d, grid_space_center=stride)
+    rng = np.random.default_rng(77)
     orients = build_orientations(p)
-    model = tiny_model(np.random.default_rng(999))
-    images = tiny_images(np.random.default_rng(999), 2, p.n_pixels)
-    eng_p = BioEMEngine(
-        p, orients, model, images,
-        RunConfig(orient_block=3, use_pallas=True, fused_lse=False,
-                  pallas_img_tile=2, pallas_projection=False),
+    model = tiny_model(rng)
+    images = tiny_images(rng, 5, p.n_pixels)
+    oracle = run_oracle(
+        p, orients, model.points.astype(np.float64), model.radii,
+        model.densities, model.norm_den, images.maps,
     )
-    eng_x = BioEMEngine(
-        p, orients, model, images, RunConfig(orient_block=3, use_pallas=False)
-    )
-    rp = eng_p.results(eng_p.run())
-    rx = eng_x.results(eng_x.run())
-    np.testing.assert_allclose(rp.log_prob, rx.log_prob, atol=2e-4)
-    np.testing.assert_array_equal(rp.best_cent_x, rx.best_cent_x)
-    np.testing.assert_array_equal(rp.best_cent_y, rx.best_cent_y)
-
-
-def test_log1p_series_accuracy():
-    """The intrinsic-free atanh-series log1p (used on TPU where the f32
-    log1p intrinsic's 3.7e-4 rel error × a_coef ≈ −N²/2 dominated the
-    N=224 backend error — round-5 attribution) must sit at the f32
-    rounding floor over its whole operative range u ∈ (−1/3, 0]."""
-    import jax.numpy as jnp
-
-    from bioem_tpu.core.posterior import _log1p_series
-
-    u = np.expm1(-np.logspace(-7, np.log10(0.405), 4000)).astype(np.float32)
-    u = np.concatenate([u, np.float32([0.0]), -u * 1e-3])  # incl. u ≥ 0
-    y = np.asarray(_log1p_series(jnp.asarray(u)))
-    true = np.log1p(u.astype(np.float64))
-    nz = np.abs(true) > 0
-    rel = np.abs(y - true)[nz] / np.abs(true)[nz]
-    assert rel.max() < 1e-6, rel.max()  # intrinsic: 3.7e-4
+    cfg = RunConfig(orient_block=orient_block, image_block=image_block)
+    eng = BioEMEngine(p, orients, model, images, cfg)
+    assert eng.n_orient_pad > eng.n_orient and eng.n_img_pad > eng.n_img
+    res = eng.results(eng.run())
+    np.testing.assert_allclose(res.log_prob, oracle.log_prob, rtol=0, atol=2e-4)
+    np.testing.assert_array_equal(res.best_orient, oracle.max_orient)
+    np.testing.assert_array_equal(res.best_conv, oracle.max_conv)
+    np.testing.assert_array_equal(res.best_cent_x, oracle.max_cent_x)
+    np.testing.assert_array_equal(res.best_cent_y, oracle.max_cent_y)
 
 
 def test_refined_varying_max_is_f64_accurate(rng):

@@ -124,7 +124,7 @@ def run_cli(case: str, tmp_path, golden_name: str = "Output_Probabilities.golden
         "--Modelfile", model_file,
         "--Particlesfile", maps_file,
         "--Inputfile", "param.txt",
-        "--OutputFile", "Output_Probabilities.tpu",
+        "--OutputFile", "Output_Probabilities.ours",
         *extra,
     ]
     # Run in-process to inherit the CPU-forced jax config from conftest.
@@ -136,7 +136,7 @@ def run_cli(case: str, tmp_path, golden_name: str = "Output_Probabilities.golden
         assert main(argv) == 0
     finally:
         os.chdir(old)
-    with open(work / "Output_Probabilities.tpu") as f:
+    with open(work / "Output_Probabilities.ours") as f:
         ours = f.read()
     with open(work / golden_name) as f:
         golden = f.read()

@@ -1,7 +1,7 @@
 """True multi-host execution: 2 jax.distributed processes reproduce the
 single-process sharded result exactly.
 
-The TPU-native analogue of running the reference under ``mpirun -n 2``
+The JAX analogue of running the reference under ``mpirun -n 2``
 (/root/reference/doc/index.rst:1367-1389): two OS processes, each owning 2
 emulated CPU devices, form one global 2×2 (img × orient) mesh. Input
 dissemination is per-host (every process builds the same inputs from the
@@ -165,7 +165,7 @@ def _run_cli(cwd, env_extra, n_local_devices):
             env.pop(k)
     env.update(
         JAX_PLATFORMS="cpu",
-        BIOEM_TPU_FORCE_CPU="1",
+        JAX_ENABLE_COMPILATION_CACHE="false",
         XLA_FLAGS=f"--xla_force_host_platform_device_count={n_local_devices}",
         BIOEM_TPU_ORIENT_BLOCK="2",
         BIOEM_TPU_MESH_IMAGES="2",

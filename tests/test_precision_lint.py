@@ -1,46 +1,49 @@
-"""Static guard: no default-precision contractions on the compute path.
+"""Static guards over the source tree.
 
-JAX's default matmul precision is bf16 on TPU; round 5's root-caused
-accuracy bug was an unqualified ``points @ rotmat.T`` whose ~4e-3-relative
-coordinate error flipped pixel snaps wholesale (ROUND5.md). The CPU suite
-cannot catch a reintroduction (CPU default is full f32), so this test
-enforces the rule STATICALLY over the device-code modules:
+1. No default-precision contractions. On a GPU, JAX's default float32
+   matmul runs in TF32 (~3 decimal digits): an unqualified
+   ``points @ rotmat.T`` then carries a coordinate error that flips pixel
+   snaps wholesale, and default-precision displacement matmuls move the
+   argmax. The CPU suite cannot catch a reintroduction (the CPU default is
+   full f32), so the rule is enforced statically over every module of the
+   package:
 
-* the bare ``@`` operator (ast.MatMult) is forbidden — use
-  ``jnp.matmul(..., precision=...)`` so intent is explicit;
-* every ``jnp.dot`` / ``jnp.matmul`` / ``jnp.einsum`` call must pass a
-  ``precision=`` keyword, except inside Pallas kernels (``ops/``) where
-  operands are already explicitly bf16-split and accumulation is pinned
-  via ``preferred_element_type``.
+   * the bare ``@`` operator (ast.MatMult) is forbidden — use
+     ``jnp.matmul(..., precision=...)``, or ``np.matmul`` in host code, so
+     intent is explicit;
+   * every ``jnp``/``jax``/``lax`` ``dot`` / ``matmul`` / ``einsum`` /
+     ``tensordot`` call must pass a ``precision=`` keyword.
+
+2. No TPU-only code in the package, ``tools/``, ``bench.py`` or
+   ``chip_smoke.py``: no TPU Pallas imports, no interpret-mode defaults and
+   no branch on the backend being a TPU.
 """
 
 import ast
+import glob
 import os
+import re
 
 import pytest
 
-ROOT = os.path.join(os.path.dirname(__file__), "..", "bioem_tpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# Device-code modules where contractions feed results. Host-side/NumPy
-# modules (io/, simulator, params, cli, debug_prob) are exempt: numpy has
-# no precision knob and runs f64-capable host arithmetic.
-CHECKED = [
-    "core/posterior.py",
-    "core/projection.py",
-    "core/engine.py",
-    "core/ctf.py",
-    "core/orientations.py",
-    "parallel/mesh.py",
-    "parallel/distributed.py",
-    "refine.py",
-    "stream.py",
-]
-
-# In-kernel dots: operands are hand-split bf16 by design; the precision=
-# kwarg is meaningless there (Mosaic takes preferred_element_type).
-KERNEL_MODULES = ["ops/compare_pallas.py", "ops/project_pallas.py"]
+PACKAGE_MODULES = sorted(
+    os.path.relpath(f, REPO)
+    for f in glob.glob(os.path.join(REPO, "bioem_tpu", "**", "*.py"), recursive=True)
+)
+SOURCES = PACKAGE_MODULES + sorted(
+    os.path.relpath(f, REPO)
+    for f in glob.glob(os.path.join(REPO, "tools", "*.py"))
+) + ["bench.py", "chip_smoke.py"]
 
 CONTRACTION_FUNCS = {"dot", "matmul", "einsum", "tensordot"}
+
+
+def _parse(rel):
+    with open(os.path.join(REPO, rel)) as f:
+        src = f.read()
+    return src, ast.parse(src, filename=rel)
 
 
 def _contraction_calls_without_precision(tree):
@@ -61,7 +64,7 @@ def _contraction_calls_without_precision(tree):
                     # functools.partial(jnp.einsum, precision=hi) wrappers
                     # produce Name calls like ein(...) — those resolve to
                     # a partial carrying precision; only flag direct
-                    # jnp/np attribute calls.
+                    # jnp/jax/lax attribute calls.
                     if isinstance(func, ast.Attribute) and isinstance(
                         func.value, ast.Name
                     ) and func.value.id in ("jnp", "jax", "lax"):
@@ -69,29 +72,47 @@ def _contraction_calls_without_precision(tree):
     return bad
 
 
-@pytest.mark.parametrize("rel", CHECKED)
+def _tpu_only_code(src, tree):
+    bad = []
+    for lineno, line in enumerate(src.splitlines(), 1):
+        if re.search(r"pallas\.tpu|pltpu|libtpu|interpret\s*=", line):
+            bad.append((lineno, line.strip()))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Compare):
+            for operand in [node.left, *node.comparators]:
+                if (isinstance(operand, ast.Constant)
+                        and str(operand.value).lower() == "tpu"):
+                    bad.append((node.lineno, "comparison with 'tpu'"))
+    return bad
+
+
+@pytest.mark.parametrize("rel", PACKAGE_MODULES)
 def test_no_default_precision_contractions(rel):
-    path = os.path.join(ROOT, rel)
-    with open(path) as f:
-        tree = ast.parse(f.read(), filename=rel)
+    _, tree = _parse(rel)
     bad = _contraction_calls_without_precision(tree)
     assert not bad, (
-        f"{rel}: default-precision contraction(s) {bad} — on TPU these run "
-        "bf16; pin precision=jax.lax.Precision.HIGHEST (see ROUND5.md)"
+        f"{rel}: default-precision contraction(s) {bad} — on a GPU float32 "
+        "matmuls default to TF32; pin precision=jax.lax.Precision.HIGHEST"
     )
 
 
-@pytest.mark.parametrize("rel", KERNEL_MODULES)
-def test_kernel_dots_pin_accumulator(rel):
-    """Kernel modules may skip precision= but every dot must pin its
-    accumulator dtype explicitly."""
-    path = os.path.join(ROOT, rel)
-    src = open(path).read()
-    tree = ast.parse(src, filename=rel)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult):
-            raise AssertionError(f"{rel}:{node.lineno}: bare @ in kernel module")
-    # Every partial(jnp.dot, ...) wrapper must carry preferred_element_type.
-    for lineno, line in enumerate(src.splitlines(), 1):
-        if "partial(jnp.dot" in line:
-            assert "preferred_element_type" in line, (rel, lineno, line)
+@pytest.mark.parametrize("rel", SOURCES)
+def test_no_tpu_only_code(rel):
+    src, tree = _parse(rel)
+    bad = _tpu_only_code(src, tree)
+    assert not bad, f"{rel}: TPU-only code {bad}"
+
+
+def test_lints_catch_violations():
+    """Both guards flag what they exist to flag."""
+    src = (
+        "import jax.numpy as jnp\n"
+        "a = x @ y\n"
+        "b = jnp.einsum('ij,jk->ik', x, y)\n"
+        "c = jnp.dot(x, y, precision=hi)\n"
+        "if jax.default_backend() == 'tpu':\n"
+        "    from jax.experimental.pallas import tpu as pltpu\n"
+    )
+    tree = ast.parse(src)
+    assert [l for l, _ in _contraction_calls_without_precision(tree)] == [2, 3]
+    assert [l for l, _ in _tpu_only_code(src, tree)] == [6, 5]

@@ -159,7 +159,7 @@ def test_maybe_autotune_threshold(rng, monkeypatch):
     run_mod.maybe_autotune(p, orients, model, images, RunConfig(autotune=False))
     assert len(calls) == 2
     # multi-device single-process: tunes (the sharded engine times its own
-    # shard_map'd scan — round-3 change; round 2 skipped meshes entirely)
+    # shard_map'd scan)
     run_mod.maybe_autotune(
         p, orients, model, images, RunConfig(autotune=True, mesh_orient=2)
     )
@@ -199,7 +199,7 @@ def test_autotune_cache_roundtrip(rng, tmp_path, monkeypatch):
         blocks=1, repeats=1,
     )
     assert again.orient_block == best.orient_block
-    assert again.pallas_img_tile == best.pallas_img_tile
+    assert again.image_block == best.image_block
     # Different shape: cache miss → falls back to the (empty) candidates.
     images2 = tiny_images(rng, 8, p.n_pixels)
     miss = autotune_config(
@@ -297,95 +297,80 @@ def test_autotune_debug_caps_shape_key(rng, tmp_path, monkeypatch):
 
 
 def test_default_candidates_cross_product_and_lane_rule():
-    """r3 regression: the tuner must try (orient_block x fused x tile)
-    jointly (the measured-best fused/tile-64/o16 combo was unreachable when
-    orient-block variants pinned fused_lse=False), and must never emit a
-    fused candidate whose lane count (tile x dp) violates Mosaic's
-    128-divisibility rule (tile 8 at dp=24 crashes lowering on real TPU)."""
+    """The tuner times the orientation block over {4, 8, 16} — one
+    candidate each, nothing else changed, autotune off in every candidate
+    — and a user-pinned orient_block leaves exactly that one."""
     from bioem_tpu.runtime.autotune import default_candidates
 
-    p = tiny_params(n_pixels=32, max_displace_center=10)  # D=21 -> dp=24
-    cfg = RunConfig(orient_block=8, use_pallas=True)
-    cands = default_candidates(cfg, p=p, n_img=64)
-    combos = {(c.orient_block, c.fused_lse, c.pallas_img_tile) for c in cands}
-    assert (16, True, 64) in combos
-    assert (8, True, 64) in combos
-    assert (16, False, 32) in combos
+    cfg = RunConfig(orient_block=8, image_block=3)
+    cands = default_candidates(cfg)
+    assert [c.orient_block for c in cands] == [4, 8, 16]
+    assert all(c.autotune is False and c.image_block == 3 for c in cands)
 
-    # n_img=16: feasible tiles are (8, 16); fused tile 8 gives 192 lanes
-    # (invalid), fused tile 16 covers the whole bank (valid).
-    cands16 = default_candidates(cfg, p=p, n_img=16)
-    combos16 = {(c.fused_lse, c.pallas_img_tile) for c in cands16}
-    assert (True, 8) not in combos16
-    assert (True, 16) in combos16
-    assert (False, 8) in combos16
+    pinned = RunConfig(orient_block=5, forced=frozenset({"orient_block"}))
+    (only,) = default_candidates(pinned)
+    assert only.orient_block == 5 and only.forced == pinned.forced
 
 
-def test_autotune_degraded_device_never_persists(rng, tmp_path, monkeypatch):
-    """r4 verdict Weak #2: a tuning session on a degraded device must tune
-    for THIS run only and leave the cache file untouched — a winner timed
-    at 2 TF/s must never poison subsequent healthy runs."""
-    import bioem_tpu.runtime.health as health
-
-    cache = tmp_path / "tune.json"
-    monkeypatch.setenv("BIOEM_TPU_AUTOTUNE_CACHE", str(cache))
-    monkeypatch.setattr(health, "cache_gate", lambda: (3.1, False))
-    p = tiny_params()
-    model = tiny_model(rng)
-    images = tiny_images(rng, 4, p.n_pixels)
-    orients = build_orientations(p)
-    best = autotune_config(
-        p, orients, model, images, RunConfig(),
-        candidates=[RunConfig(orient_block=2)], blocks=1, repeats=1,
-    )
-    assert best.orient_block == 2  # this run still gets the timed winner
-    assert not cache.exists()  # ...but nothing was persisted
-
-
-def test_autotune_healthy_device_persists_with_stamp(rng, tmp_path, monkeypatch):
-    """A healthy-device winner is persisted, stamped with the gating probe
-    value for provenance, and the stamp never leaks into the applied
-    config fields on a later cache hit."""
+def test_autotune_cache_entry_with_unknown_fields_loads(rng, tmp_path, monkeypatch):
+    """Cache entries may hold fields a RunConfig no longer has (e.g. the
+    kernel choice and image tile of earlier versions): a hit applies only
+    the tuned fields and never passes the others to RunConfig."""
     import json
 
-    import bioem_tpu.runtime.health as health
+    from bioem_tpu.runtime.autotune import _cache_key
 
-    cache = tmp_path / "tune.json"
-    monkeypatch.setenv("BIOEM_TPU_AUTOTUNE_CACHE", str(cache))
-    monkeypatch.setattr(health, "cache_gate", lambda: (151.0, True))
     p = tiny_params()
     model = tiny_model(rng)
     images = tiny_images(rng, 4, p.n_pixels)
     orients = build_orientations(p)
-    autotune_config(
-        p, orients, model, images, RunConfig(),
-        candidates=[RunConfig(orient_block=2)], blocks=1, repeats=1,
-    )
-    data = json.loads(cache.read_text())
-    (entry,) = data.values()
-    assert entry["_health_tflops"] == 151.0
-    # Cache hit applies only real config fields (no _health_tflops kwarg).
-    again = autotune_config(
+    cache = tmp_path / "tune.json"
+    key = _cache_key(p, orients.n, 4, RunConfig())
+    cache.write_text(json.dumps({key: {
+        "orient_block": 2, "image_block": 0, "use_pallas": True,
+        "pallas_img_tile": 64, "fused_lse": True, "fused_batched": False,
+        "_health_tflops": 140.0,
+    }}))
+    monkeypatch.setenv("BIOEM_TPU_AUTOTUNE_CACHE", str(cache))
+    out = autotune_config(
         p, orients, model, images, RunConfig(orient_block=7),
         candidates=[], blocks=1, repeats=1,
     )
-    assert again.orient_block == 2
+    assert out.orient_block == 2 and out.image_block == 0
+    assert out.autotune is False
+    eng = BioEMEngine(p, orients, model, images, out)
+    assert np.isfinite(eng.results(eng.run()).log_prob).all()
 
 
-def test_autotune_tpu_load_ignores_unstamped_entries(tmp_path, monkeypatch):
-    """Legacy cache entries written before the health gate existed (or by
-    older builds) carry no probe stamp — on TPU they may have been tuned in
-    a degraded regime and must read as cache misses."""
-    import json
+@pytest.mark.parametrize("cwd", ["checkout", "elsewhere"])
+def test_compile_cache_in_checkout_when_env_unset(cwd, tmp_path, monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache goes to
+    <checkout>/.jax_cache, whatever the working directory."""
+    import os
 
-    from bioem_tpu.runtime import autotune as at
+    import jax
 
-    cache = tmp_path / "tune.json"
-    cache.write_text(json.dumps({
-        "K_legacy": {"orient_block": 2},
-        "K_stamped": {"orient_block": 4, "_health_tflops": 140.0},
-    }))
-    monkeypatch.setenv("BIOEM_TPU_AUTOTUNE_CACHE", str(cache))
-    monkeypatch.setattr(at.jax, "default_backend", lambda: "tpu")
-    assert at._cache_load("K_legacy") is None
-    assert at._cache_load("K_stamped") == {"orient_block": 4}
+    from bioem_tpu import config
+
+    calls = []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax.config, "update", lambda k, v: calls.append((k, v)))
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.chdir(checkout if cwd == "checkout" else tmp_path)
+    want = os.path.join(checkout, ".jax_cache")
+    assert config.use_compile_cache() == want
+    assert calls == [("jax_compilation_cache_dir", want)]
+
+
+def test_compile_cache_follows_env(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself: the helper
+    reports it and sets no directory."""
+    import jax
+
+    from bioem_tpu import config
+
+    calls = []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    monkeypatch.setattr(jax.config, "update", lambda k, v: calls.append((k, v)))
+    assert config.use_compile_cache() == str(tmp_path / "cc")
+    assert calls == []

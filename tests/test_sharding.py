@@ -1,6 +1,6 @@
 """Sharded run == single-device run, on the emulated 8-device CPU mesh.
 
-The TPU answer to the reference's "multi-node testing without a cluster"
+The JAX answer to the reference's "multi-node testing without a cluster"
 (mpirun on one box, doc/index.rst:1367-1389).
 """
 
@@ -101,29 +101,28 @@ def test_sharded_checkpoint_resume(rng, tmp_path):
     np.testing.assert_array_equal(r3.best_orient, ref.best_orient)
 
 
-@pytest.mark.parametrize("fused_lse,fused_batched,pallas_proj", [
-    (False, False, False), (True, False, False), (True, True, False),
-    (True, True, True),
+@pytest.mark.parametrize("mesh_shape,image_block", [
+    ((2, 2), 1), ((2, 2), 2), ((2, 4), 1), ((1, 4), 2),
 ])
-def test_sharded_pallas_matches_single(problem, fused_lse, fused_batched,
-                                       pallas_proj):
-    """The PRODUCTION multi-chip config is Pallas kernel × mesh — compose
-    them on the CPU mesh (interpret mode) against the single-device XLA
-    reference. Covers all three kernel flavours (hybrid cc, fused
-    in-kernel LSE, fully batched body) under shard_map."""
+def test_sharded_pallas_matches_single(problem, mesh_shape, image_block):
+    """Mesh × image blocking: with image_block below each shard's image
+    count the block step's lax.map over image blocks runs under shard_map,
+    including padded image lanes, and must reproduce the single-device
+    run."""
     p, orients, model, images = problem
     ref = _single(p, orients, model, images)
 
+    mi, mo = mesh_shape
     cfg = RunConfig(
-        orient_block=2, mesh_images=2, mesh_orient=2,
-        use_pallas=True, fused_lse=fused_lse, fused_batched=fused_batched,
-        pallas_img_tile=2, pallas_projection=pallas_proj,
+        orient_block=2, mesh_images=mi, mesh_orient=mo, image_block=image_block,
     )
     eng = ShardedBioEMEngine(p, orients, model, images, cfg)
+    n_local = eng.n_img_pad // mi
+    assert eng.i_block < n_local and n_local % eng.i_block == 0
     res = eng.results(eng.run())
 
-    np.testing.assert_allclose(res.log_prob, ref.log_prob, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res.log_prob, ref.log_prob, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(res.best_orient, ref.best_orient)
     np.testing.assert_array_equal(res.best_cent_x, ref.best_cent_x)
     np.testing.assert_array_equal(res.best_cent_y, ref.best_cent_y)
-    np.testing.assert_allclose(res.angle_log, ref.angle_log, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res.angle_log, ref.angle_log, rtol=0, atol=1e-5)

@@ -82,3 +82,69 @@ def test_write_rotated_models(rng):
     np.testing.assert_allclose(
         np.linalg.norm(first), np.linalg.norm(model.points[0]), rtol=1e-5
     )
+
+
+def test_trace_step_reduces_a_gpu_trace():
+    """tools/trace_step.py's reduction on a small GPU trace: kernels match
+    their HLO instruction by hlo_op stat or (inside a CUDA graph) by kernel
+    name, layers come from the named scope in op_name, and the idle share
+    is the gap share of the first-to-last kernel window."""
+    from jax.profiler import ProfileData
+
+    from tools.trace_step import hlo_op_names, reduce_trace
+
+    hlo = "\n".join([
+        '  %input_transpose_fusion.2 = f32[8] fusion(%a), kind=kInput, '
+        'metadata={op_name="jit(_run_scan)/while/body/cc_product/sub"}',
+        '  %custom-call.13 = f32[8] custom-call(%b), '
+        'metadata={op_name="jit(_run_scan)/while/body/cc_stage1/dot_general"}',
+        '  ROOT %loop_add_fusion = f32[8] fusion(%c), kind=kLoop, '
+        'metadata={op_name="jit(_run_scan)/while/body/merge/add"}',
+    ])
+    trace = ProfileData.from_text_proto('''
+planes {
+  id: 1
+  name: "/device:GPU:0"
+  lines {
+    id: 1
+    name: "Stream #13(Compute)"
+    timestamp_ns: 1000
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 3000000
+             stats { metadata_id: 1 str_value: "command_buffer" } }
+    events { metadata_id: 2 offset_ps: 4000000 duration_ps: 1000000
+             stats { metadata_id: 1 str_value: "custom-call.13" } }
+    events { metadata_id: 3 offset_ps: 4500000 duration_ps: 1000000
+             stats { metadata_id: 1 str_value: "loop_add_fusion" } }
+    events { metadata_id: 4 offset_ps: 6000000 duration_ps: 500000 }
+  }
+  event_metadata { key: 1 value { id: 1 name: "input_transpose_fusion_2" } }
+  event_metadata { key: 2 value { id: 2 name: "sm90_xmma_gemm" } }
+  event_metadata { key: 3 value { id: 3 name: "loop_add_fusion" } }
+  event_metadata { key: 4 value { id: 4 name: "Memset" } }
+  stat_metadata { key: 1 value { id: 1 name: "hlo_op" } }
+}
+planes { id: 2 name: "/host:CPU" }
+''')
+    rep = reduce_trace(trace, hlo_op_names(hlo))
+    assert rep["plane"] == "/device:GPU:0"
+    assert rep["layers_ns"] == {
+        "cc_product": 3000.0, "cc_stage1": 1000.0, "merge": 1000.0,
+        "other": 500.0,
+    }
+    assert rep["kernel_ns"] == 5500.0
+    # Window 1000..7500 ns; busy [1000,4000] ∪ [5000,6500] ∪ [7000,7500].
+    assert rep["window_ns"] == 6500.0 and rep["busy_ns"] == 5000.0
+    assert abs(rep["idle_share"] - 1500.0 / 6500.0) < 1e-12
+    assert [r["op"] for r in rep["ops"]][:2] == [
+        "input_transpose_fusion_2", "custom-call.13"]
+
+
+def test_bench_refuses_to_measure_without_gpu():
+    """bench.py's numbers are device metrics: on the CPU it stops before
+    measuring anything."""
+    import pytest
+
+    import bench
+
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        bench.device_identity()

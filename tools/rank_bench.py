@@ -34,9 +34,6 @@ def main():
     n_images = int(sys.argv[2]) if len(sys.argv) > 2 else 1000
     n_orient = int(sys.argv[3]) if len(sys.argv) > 3 else 576
 
-    from bioem_tpu.config import force_cpu_if_requested
-
-    force_cpu_if_requested()
 
     from bench import build_problem
     from bioem_tpu.config import RunConfig

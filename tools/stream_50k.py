@@ -1,11 +1,11 @@
-"""BASELINE config-5 image scale on ONE chip: 50k × 224² images, streamed.
+"""BASELINE config-5 image scale on ONE card: 50k × 224² images, streamed.
 
 The full conj-FFT image bank for 50k 224² particles is ~10 GB (plus cc
-intermediates) — far beyond a single chip's usable HBM for this problem.
+intermediates) — more than this problem should hold on one card.
 The streaming mode (bioem_tpu/stream.py, reference analogue: GPU image
 chunking nTotParallelMaps=1024, /root/reference/map.cpp:549 defs.h:182)
 holds only one chunk's banks on device at a time, so the 50k set runs on
-one chip without OOM.
+one card without OOM.
 
 Images are synthesised lazily per chunk (seeded by chunk index) — the host
 never materialises the 10 GB stack either. Orientation count is kept small
@@ -55,10 +55,6 @@ def main():
         del args[i:i + 2]
     n_images = int(args[0]) if len(args) > 0 else 50_000
     chunk = int(args[1]) if len(args) > 1 else 1024
-
-    from bioem_tpu.config import force_cpu_if_requested
-
-    force_cpu_if_requested()
 
     from bench import build_problem
     from bioem_tpu.config import RunConfig
